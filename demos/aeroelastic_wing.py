@@ -26,13 +26,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu import config
+from goldfish_jax import config
 
 
 def greville_dy_operator(system):
     """Constant per-patch operators: d_z coefficients -> d(u_z)/dv at
     the Greville points (one row per CP): (P, C, C) padded."""
-    from goldfish_tpu.ops.bspline import rational_basis_2d
+    from goldfish_jax.ops.bspline import rational_basis_2d
 
     P, C = system.stack.n_patches, system.stack.max_cp
     G = np.zeros((P, C, C))
@@ -51,9 +51,9 @@ def greville_dy_operator(system):
 def build_field_solve(system, rtol=1e-9, max_it=25):
     """Differentiable solve(cp, h, f_field, d0) with the distributed
     load field as an explicit adjoint input (dJ/df by AD)."""
-    from goldfish_tpu.solver.implicit import newton_solve
-    from goldfish_tpu.solver.linalg import linear_solve
-    from goldfish_tpu.solver.system import assemble_K, residual
+    from goldfish_jax.solver.implicit import newton_solve
+    from goldfish_jax.solver.linalg import linear_solve
+    from goldfish_jax.solver.system import assemble_K, residual
 
     base = system.data
 
@@ -85,8 +85,8 @@ def build_field_solve(system, rtol=1e-9, max_it=25):
 
 def main(num_el=3, p=3, n_chord=4, n_span=5, n_fp=4, q_dyn=30.0,
          alpha0=0.08, verbose=True):
-    from goldfish_tpu.models import wing
-    from goldfish_tpu.physics import kl_shell
+    from goldfish_jax.models import wing
+    from goldfish_jax.physics import kl_shell
 
     sys_ = wing.build(n_chord=n_chord, n_span=n_span, num_el=num_el, p=p,
                       load_scale=0.0)

@@ -27,7 +27,7 @@ def build_knot_cp_lists(n_sections=3, num_el=3, p=3):
     grids (here generated from the boxwing model; the reference gets
     them from CADDEE's c172 STEP refit, which is not shipped in its
     repo)."""
-    from goldfish_tpu.models import boxwing
+    from goldfish_jax.models import boxwing
 
     base = boxwing.build(n_sections=n_sections, num_el=num_el, p=p)
     knot_list = [[np.asarray(k) for k in s.knots] for s in base.surfs]
@@ -39,15 +39,15 @@ def build_knot_cp_lists(n_sections=3, num_el=3, p=3):
 
 def main(n_sections=3, num_el=3, p=3, n_fp=4, q_dyn=2.0e2,
          alpha0=0.05, verbose=True):
-    from goldfish_tpu.caddee import KLShellModel
-    from goldfish_tpu.models import boxwing
+    from goldfish_jax.caddee import KLShellModel
+    from goldfish_jax.models import boxwing
 
     knot_list, cp_list, bc_list, upper = build_knot_cp_lists(
         n_sections, num_el, p)
 
     # intersection cache round-trip (the wing_int_data.npz role)
-    from goldfish_tpu.geometry.preprocessing import Preprocessor
-    from goldfish_tpu.geometry.nurbs import NURBS
+    from goldfish_jax.geometry.preprocessing import Preprocessor
+    from goldfish_jax.geometry.nurbs import NURBS
 
     surfs = [NURBS(k, c) for k, c in zip(knot_list, cp_list)]
     cache = os.path.join(tempfile.gettempdir(), "boxwing_int_data.npz")
@@ -100,7 +100,7 @@ def main(n_sections=3, num_el=3, p=3, n_fp=4, q_dyn=2.0e2,
 
 if __name__ == "__main__":
     argparse.ArgumentParser().parse_args()
-    from goldfish_tpu import config
+    from goldfish_jax import config
 
     config.use_x64(True)
     main()

@@ -9,7 +9,7 @@ GRAPH.
 (implicit) -> IntEnergyModel (objective) + VolumeModel (equality
 constraint), optimized with the modopt CSDLAlphaProblem/SLSQP driver
 shape. Runs on real csdl_alpha + modopt when installed, else on
-goldfish_tpu.csdl_shim (same API subset).
+goldfish_jax.csdl_shim (same API subset).
 
 Run: python demos/csdl_plate_const_th_opt.py
 """
@@ -21,21 +21,21 @@ import numpy as np
 try:
     import csdl_alpha as csdl
 except ModuleNotFoundError:
-    from goldfish_tpu import csdl_shim as csdl
+    from goldfish_jax import csdl_shim as csdl
 
 try:
     from modopt import CSDLAlphaProblem, SLSQP
 except ModuleNotFoundError:
-    from goldfish_tpu.csdl_shim import CSDLAlphaProblem, SLSQP
+    from goldfish_jax.csdl_shim import CSDLAlphaProblem, SLSQP
 
-from goldfish_tpu.csdl_models.models import (
+from goldfish_jax.csdl_models.models import (
     DispStatesModel,
     HthMapModel,
     IntEnergyModel,
     VolumeModel,
 )
-from goldfish_tpu.design.pipeline import CPLayout
-from goldfish_tpu.models import plate
+from goldfish_jax.design.pipeline import CPLayout
+from goldfish_jax.models import plate
 
 
 def build_recorder(num_el=3, p=2, num_patches=3, rtol=1e-10):

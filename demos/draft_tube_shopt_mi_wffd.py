@@ -18,9 +18,9 @@ import numpy as np
 
 
 def build_mi_tube(num_el=3, p=3, pressure=2.0e4):
-    from goldfish_tpu.models import tube
-    from goldfish_tpu.physics.coupling import InterfaceSpec
-    from goldfish_tpu.solver.system_mi import MINonMatchingSystem
+    from goldfish_jax.models import tube
+    from goldfish_jax.physics.coupling import InterfaceSpec
+    from goldfish_jax.solver.system_mi import MINonMatchingSystem
 
     base = tube.build(num_el=num_el, p=p, pressure=pressure)
     specs = base.specs
@@ -35,11 +35,11 @@ def build_mi_tube(num_el=3, p=3, pressure=2.0e4):
 
 
 def main(num_el=3, p=3, maxiter=4, verbose=True):
-    from goldfish_tpu.design.constraints import pin_operator
-    from goldfish_tpu.design.pipeline import ShapeFFD
-    from goldfish_tpu.models import tube
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
+    from goldfish_jax.design.constraints import pin_operator
+    from goldfish_jax.design.pipeline import ShapeFFD
+    from goldfish_jax.models import tube
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
 
     sys_ = build_mi_tube(num_el=num_el, p=p)
     sh = ShapeFFD(sys_, num_els=(2, 2, 2), p=2, opt_fields=(0, 1))
@@ -97,7 +97,7 @@ if __name__ == "__main__":
     ap.add_argument("--num-el", type=int, default=3)
     ap.add_argument("--maxiter", type=int, default=4)
     a = ap.parse_args()
-    from goldfish_tpu import config
+    from goldfish_jax import config
 
     config.use_x64(True)
     main(num_el=a.num_el, maxiter=a.maxiter)

@@ -27,10 +27,10 @@ import numpy as np
 
 def build_system(n_sections=3, num_el=3, p=3, verbose=True):
     """IGS round-trip + intersection discovery + system assembly."""
-    from goldfish_tpu.geometry.igs_io import read_igs_file, write_igs_file
-    from goldfish_tpu.geometry.preprocessing import Preprocessor
-    from goldfish_tpu.models import boxwing
-    from goldfish_tpu.solver.system import NonMatchingSystem
+    from goldfish_jax.geometry.igs_io import read_igs_file, write_igs_file
+    from goldfish_jax.geometry.preprocessing import Preprocessor
+    from goldfish_jax.models import boxwing
+    from goldfish_jax.solver.system import NonMatchingSystem
 
     base = boxwing.build(n_sections=n_sections, num_el=num_el, p=p)
     igs = os.path.join(tempfile.gettempdir(), "evtol_wing.igs")
@@ -59,11 +59,11 @@ def build_system(n_sections=3, num_el=3, p=3, verbose=True):
 
 
 def main(n_sections=3, num_el=3, p=3, maxiter=5, verbose=True):
-    from goldfish_tpu.design.pipeline import ShapeFFD, ThicknessFFD
-    from goldfish_tpu.models import boxwing
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import build_solve_fn
+    from goldfish_jax.design.pipeline import ShapeFFD, ThicknessFFD
+    from goldfish_jax.models import boxwing
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import build_solve_fn
 
     sys_, base, pre = build_system(n_sections, num_el, p,
                                    verbose=verbose)
@@ -81,7 +81,7 @@ def main(n_sections=3, num_el=3, p=3, maxiter=5, verbose=True):
     # the y planes cannot move, so the analogous SHAPE constraint here
     # keeps each rib's z-extent consistent between its two skins: tie
     # the FFD z-dofs of coincident (x, y) columns.
-    from goldfish_tpu.design.constraints import align_operator
+    from goldfish_jax.design.constraints import align_operator
 
     A_align = align_operator(sh.shape, axis=2)  # z-columns move together
 

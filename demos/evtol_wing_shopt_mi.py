@@ -53,19 +53,19 @@ import numpy as np
 try:
     import openmdao.api as om
 except ModuleNotFoundError:
-    from goldfish_tpu.om_shim import api as om
+    from goldfish_jax.om_shim import api as om
 
-from goldfish_tpu.design.pipeline import CPLayout
-from goldfish_tpu.geometry.cadkit import line, ruled
-from goldfish_tpu.om_comps.components import (
+from goldfish_jax.design.pipeline import CPLayout
+from goldfish_jax.geometry.cadkit import line, ruled
+from goldfish_jax.om_comps.components import (
     CPIGA2XiComp,
     DispMintStatesComp,
     IntEnergyComp,
     IntXiEdgeComp,
     _LinearMapComp,
 )
-from goldfish_tpu.physics.coupling import InterfaceSpec
-from goldfish_tpu.solver.system_mi import MINonMatchingSystem
+from goldfish_jax.physics.coupling import InterfaceSpec
+from goldfish_jax.solver.system_mi import MINonMatchingSystem
 
 E = 70.0e9
 NU = 0.33
@@ -189,7 +189,7 @@ def _profile_operator(knots, p):
     (single-element) space into the patch direction (knots, p): the
     z-profile polynomial is reproduced EXACTLY in the patch basis, so
     surfaces slaved through it stay coincident along the seams."""
-    from goldfish_tpu.ops.refine import refine_knots_operator
+    from goldfish_jax.ops.refine import refine_knots_operator
 
     bern = np.concatenate([np.zeros(p + 1), np.ones(p + 1)])
     interior = np.asarray(knots, dtype=np.float64)[p + 1:-(p + 1)]
@@ -449,7 +449,7 @@ def main(num_el=4, p=3, maxiter=6, verbose=True, variant="rspar_rrib"):
 if __name__ == "__main__":
     import argparse
 
-    from goldfish_tpu import config
+    from goldfish_jax import config
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", default="rspar_rrib", choices=VARIANTS)

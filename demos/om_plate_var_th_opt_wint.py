@@ -7,7 +7,7 @@
 HthFFD2FEComp -> HthFE2IGAComp -> DispStatesComp -> IntEnergyComp /
 VolumeComp objectives + HthFFDAlignComp / HthFFDReguComp linear
 constraints, driven by ScipyOptimizeDriver SLSQP. Runs on real
-OpenMDAO when installed, else on goldfish_tpu.om_shim (same API).
+OpenMDAO when installed, else on goldfish_jax.om_shim (same API).
 
 Run: python demos/om_plate_var_th_opt_wint.py
 """
@@ -19,12 +19,12 @@ import numpy as np
 try:
     import openmdao.api as om
 except ModuleNotFoundError:
-    from goldfish_tpu.om_shim import api as om
+    from goldfish_jax.om_shim import api as om
 
-from goldfish_tpu.design.constraints import align_operator, regu_operator
-from goldfish_tpu.design.pipeline import ThicknessFFD
-from goldfish_tpu.models import plate
-from goldfish_tpu.om_comps.components import (
+from goldfish_jax.design.constraints import align_operator, regu_operator
+from goldfish_jax.design.pipeline import ThicknessFFD
+from goldfish_jax.models import plate
+from goldfish_jax.om_comps.components import (
     DispStatesComp,
     HthFE2IGAComp,
     HthFFD2FEComp,

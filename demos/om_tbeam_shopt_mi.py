@@ -10,7 +10,7 @@ CPIGA2XiComp (implicit CP->xi) -> DispMintStatesComp (implicit solve
 with xi input) -> IntEnergyComp objective, with CPSurfPinComp and
 IntXiEdgeComp equality constraints (the reference's edge-type xi
 constraint rows). Runs on real OpenMDAO when installed, else on
-goldfish_tpu.om_shim.
+goldfish_jax.om_shim.
 
 Run: python demos/om_tbeam_shopt_mi.py
 """
@@ -22,12 +22,12 @@ import numpy as np
 try:
     import openmdao.api as om
 except ModuleNotFoundError:
-    from goldfish_tpu.om_shim import api as om
+    from goldfish_jax.om_shim import api as om
 
-from goldfish_tpu.design.cp_design import CPSurfDesign2Analysis
-from goldfish_tpu.design.pipeline import CPLayout
-from goldfish_tpu.models import tbeam
-from goldfish_tpu.om_comps.components import (
+from goldfish_jax.design.cp_design import CPSurfDesign2Analysis
+from goldfish_jax.design.pipeline import CPLayout
+from goldfish_jax.models import tbeam
+from goldfish_jax.om_comps.components import (
     CPIGA2XiComp,
     CPSurfKnotRefienmentComp,
     CPSurfOrderElevationComp,
@@ -37,8 +37,8 @@ from goldfish_tpu.om_comps.components import (
     IntXiEdgeComp,
     _LinearMapComp,
 )
-from goldfish_tpu.physics.coupling import InterfaceSpec
-from goldfish_tpu.solver.system_mi import MINonMatchingSystem
+from goldfish_jax.physics.coupling import InterfaceSpec
+from goldfish_jax.solver.system_mi import MINonMatchingSystem
 
 
 class CPAnalysis2FullComp(_LinearMapComp):

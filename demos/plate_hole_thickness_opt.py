@@ -20,12 +20,12 @@ import os
 
 import numpy as np
 
-from goldfish_tpu import config  # noqa: F401  (x64 / backend setup)
+from goldfish_jax import config  # noqa: F401  (x64 / backend setup)
 
 
 def build_system(num_el=8, r_hole=0.25, trim_subdiv=4):
-    from goldfish_tpu.geometry.cadkit import bilinear
-    from goldfish_tpu.solver.system import NonMatchingSystem
+    from goldfish_jax.geometry.cadkit import bilinear
+    from goldfish_jax.solver.system import NonMatchingSystem
 
     s = bilinear([0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0])
     s = s.elevate(0, 2).elevate(1, 2)
@@ -48,11 +48,11 @@ def main(num_el=8, maxiter=20, results="./results/plate_hole_thopt",
          verbose=True, r_hole=0.25):
     import jax.numpy as jnp
 
-    from goldfish_tpu.design.pipeline import ThicknessFFD
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import build_solve_fn
-    from goldfish_tpu.utils.vtk_io import SurfaceWriter
+    from goldfish_jax.design.pipeline import ThicknessFFD
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import build_solve_fn
+    from goldfish_jax.utils.vtk_io import SurfaceWriter
 
     sys_, hole = build_system(num_el, r_hole=r_hole)
     h0_val = float(np.asarray(sys_.h_init).max())

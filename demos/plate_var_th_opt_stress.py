@@ -23,7 +23,7 @@ initial (uniform-thickness) KS stress and the stress at the lower
 bound, so the constraint is ACTIVE at the optimum: the optimizer thins
 the plate until the stress allowable stops it.
 
-Runs on real OpenMDAO when installed, else on goldfish_tpu.om_shim.
+Runs on real OpenMDAO when installed, else on goldfish_jax.om_shim.
 
 Run: python demos/plate_var_th_opt_stress.py
 """
@@ -35,12 +35,12 @@ import numpy as np
 try:
     import openmdao.api as om
 except ModuleNotFoundError:
-    from goldfish_tpu.om_shim import api as om
+    from goldfish_jax.om_shim import api as om
 
-from goldfish_tpu.design.constraints import align_operator, regu_operator
-from goldfish_tpu.design.pipeline import ThicknessFFD
-from goldfish_tpu.models import plate
-from goldfish_tpu.om_comps.components import (
+from goldfish_jax.design.constraints import align_operator, regu_operator
+from goldfish_jax.design.pipeline import ThicknessFFD
+from goldfish_jax.models import plate
+from goldfish_jax.om_comps.components import (
     DispStatesComp,
     HthFE2IGAComp,
     HthFFD2FEComp,
@@ -171,7 +171,7 @@ def build_problem(num_el=3, p=2, num_patches=2, ffd_els=(4, 2, 1),
     th = ThicknessFFD(sys, num_els=ffd_els, p=(2, 1, 1))
 
     # evaluate the initial KS stress to place the allowable
-    from goldfish_tpu.operations.exops import MaxvMStressExOperation
+    from goldfish_jax.operations.exops import MaxvMStressExOperation
 
     d = sys.solve_nonlinear(rtol=1e-10, max_it=30)
     lay = th.layout

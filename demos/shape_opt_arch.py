@@ -16,11 +16,11 @@ import argparse
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu import config
+from goldfish_jax import config
 
 
 def build(num_el=4, p=3, num_patches=3):
-    from goldfish_tpu.models import plate
+    from goldfish_jax.models import plate
 
     sys_ = plate.build(num_el=num_el, p=p, num_patches=num_patches)
     # replace the cantilever setup: pin both x-ends, uniform dead load
@@ -34,10 +34,10 @@ def build(num_el=4, p=3, num_patches=3):
 
 
 def main(num_el=4, p=3, num_patches=3, maxiter=25, verbose=True):
-    from goldfish_tpu.design.pipeline import ShapeFFD
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import build_solve_fn
+    from goldfish_jax.design.pipeline import ShapeFFD
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import build_solve_fn
 
     sys_ = build(num_el, p, num_patches)
     ffd = ShapeFFD(sys_, num_els=(4, 1, 1), p=(2, 1, 1),

@@ -17,15 +17,15 @@ import argparse
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu import config
+from goldfish_jax import config
 
 
 def main(num_el=4, p=3, maxiter=15, verbose=True):
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.physics.coupling import InterfaceSpec
-    from goldfish_tpu.solver.system_mi import MINonMatchingSystem
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.physics.coupling import InterfaceSpec
+    from goldfish_jax.solver.system_mi import MINonMatchingSystem
 
     w2 = tbeam.WIDTH / 2
     pts0 = [[-w2, 0, 0], [w2, 0, 0], [-w2, tbeam.LENGTH, 0],

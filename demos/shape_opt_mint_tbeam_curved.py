@@ -20,10 +20,10 @@ import numpy as np
 
 
 def build_curved_mi(num_el=4, p=3, amp=0.06, n_pts=11):
-    from goldfish_tpu.geometry.nurbs import NURBS
-    from goldfish_tpu.geometry.preprocessing import Preprocessor
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.solver.system_mi import MINonMatchingSystem
+    from goldfish_jax.geometry.nurbs import NURBS
+    from goldfish_jax.geometry.preprocessing import Preprocessor
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.solver.system_mi import MINonMatchingSystem
 
     w2 = tbeam.WIDTH / 2
     zs_top = 0.25 * tbeam.DEPTH
@@ -55,9 +55,9 @@ def build_curved_mi(num_el=4, p=3, amp=0.06, n_pts=11):
 
 
 def main(num_el=4, p=3, maxiter=4, verbose=True):
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
 
     sys_, pre = build_curved_mi(num_el=num_el, p=p)
     if verbose:
@@ -99,7 +99,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--maxiter", type=int, default=4)
     a = ap.parse_args()
-    from goldfish_tpu import config
+    from goldfish_jax import config
 
     config.use_x64(True)
     main(maxiter=a.maxiter)

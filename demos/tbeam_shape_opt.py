@@ -22,7 +22,7 @@ import argparse
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu import config
+from goldfish_jax import config
 
 E = 1.0e12
 NU = 0.0
@@ -37,9 +37,9 @@ def build(num_el=6, p=3, x_web=0.4):
     """T-beam with the web seam at x = x_web (off-center for x_web != 0;
     the flange is linearly parametrized in x so the seam sits at
     u = (x_web + W/2) / W)."""
-    from goldfish_tpu.models.tbeam import create_surf
-    from goldfish_tpu.physics.coupling import InterfaceSpec
-    from goldfish_tpu.solver.system import NonMatchingSystem
+    from goldfish_jax.models.tbeam import create_surf
+    from goldfish_jax.physics.coupling import InterfaceSpec
+    from goldfish_jax.solver.system import NonMatchingSystem
 
     w2 = WIDTH / 2.0
     pts0 = [[-w2, 0.0, 0.0], [w2, 0.0, 0.0],
@@ -67,11 +67,11 @@ def build(num_el=6, p=3, x_web=0.4):
 
 
 def main(num_el=6, p=3, maxiter=20, x_web=0.4, verbose=True):
-    from goldfish_tpu.design.constraints import pin_operator, regu_operator
-    from goldfish_tpu.design.pipeline import ShapeFFD
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import build_solve_fn
+    from goldfish_jax.design.constraints import pin_operator, regu_operator
+    from goldfish_jax.design.pipeline import ShapeFFD
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import build_solve_fn
 
     sys_ = build(num_el, p, x_web)
     w2 = WIDTH / 2.0

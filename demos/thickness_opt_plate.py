@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Variable-thickness plate optimization — the reference's headline
 thickness demo (reference: demos_om/thickness_opt/plate/
-plate_var_th_opt_wint.py) on the TPU-native stack.
+plate_var_th_opt_wint.py) on this JAX stack.
 
 Geometry: the reference's own 6-patch IGS plate when mounted
 (non-matching cubic strips), else the built-in plate model. Minimize
@@ -17,18 +17,18 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu import config
+from goldfish_jax import config
 
 REF_IGS = ("/root/reference/demos_csdl_alpha/thickness_opt/geometry/"
            "plate_geometry.igs")
 
 
 def build_system(num_el):
-    from goldfish_tpu.geometry.preprocessing import Preprocessor
-    from goldfish_tpu.solver.system import NonMatchingSystem
+    from goldfish_jax.geometry.preprocessing import Preprocessor
+    from goldfish_jax.solver.system import NonMatchingSystem
 
     if os.path.exists(REF_IGS):
-        from goldfish_tpu.geometry.igs_io import read_igs_file
+        from goldfish_jax.geometry.igs_io import read_igs_file
 
         surfs = read_igs_file(REF_IGS)
         pre = Preprocessor(surfs).compute_intersections(
@@ -39,20 +39,20 @@ def build_system(num_el):
         sys_.add_edge_load(len(surfs) - 1, direction=1, side=1,
                            force=[0.0, 0.0, -100.0])
         return sys_
-    from goldfish_tpu.models import plate
+    from goldfish_jax.models import plate
 
     return plate.build(num_el=num_el, p=3, num_patches=4)
 
 
 def main(num_el=4, maxiter=30, results="./results/plate_thopt",
          verbose=True):
-    from goldfish_tpu.design.constraints import align_operator
-    from goldfish_tpu.design.pipeline import ThicknessFFD
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import build_solve_fn
-    from goldfish_tpu.utils.checkpoint import Checkpointer
-    from goldfish_tpu.utils.vtk_io import SurfaceWriter
+    from goldfish_jax.design.constraints import align_operator
+    from goldfish_jax.design.pipeline import ThicknessFFD
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import build_solve_fn
+    from goldfish_jax.utils.checkpoint import Checkpointer
+    from goldfish_jax.utils.vtk_io import SurfaceWriter
 
     sys_ = build_system(num_el)
     h0_val = float(np.asarray(sys_.h_init).max())

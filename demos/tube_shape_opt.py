@@ -21,17 +21,17 @@ import argparse
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu import config
+from goldfish_jax import config
 
 SCALE_X, SCALE_Y = 1.30, 0.72
 
 
 def build(num_el=4, p=3, pressure=2.0e4):
     """models.tube geometry, cross-section scaled to an ellipse."""
-    from goldfish_tpu.geometry.nurbs import NURBS
-    from goldfish_tpu.models import tube
-    from goldfish_tpu.physics.coupling import InterfaceSpec
-    from goldfish_tpu.solver.system import NonMatchingSystem
+    from goldfish_jax.geometry.nurbs import NURBS
+    from goldfish_jax.models import tube
+    from goldfish_jax.physics.coupling import InterfaceSpec
+    from goldfish_jax.solver.system import NonMatchingSystem
 
     base = tube.build(num_el=num_el, p=p)
     surfs = []
@@ -54,12 +54,12 @@ def build(num_el=4, p=3, pressure=2.0e4):
 
 
 def main(num_el=4, p=3, maxiter=15, verbose=True):
-    from goldfish_tpu.design.constraints import pin_operator, regu_operator
-    from goldfish_tpu.design.pipeline import ShapeFFD
-    from goldfish_tpu.models import tube
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import build_solve_fn
+    from goldfish_jax.design.constraints import pin_operator, regu_operator
+    from goldfish_jax.design.pipeline import ShapeFFD
+    from goldfish_jax.models import tube
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import build_solve_fn
 
     sys_ = build(num_el, p)
     R = tube.RADIUS
@@ -105,7 +105,7 @@ def main(num_el=4, p=3, maxiter=15, verbose=True):
     cp_opt = ffd(jnp.asarray(res.x["p_xy"]))
 
     def roundness(cp):
-        from goldfish_tpu.ops.bspline import rational_basis_2d
+        from goldfish_jax.ops.bspline import rational_basis_2d
 
         pts = []
         for k in range(4):

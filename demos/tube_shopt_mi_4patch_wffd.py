@@ -30,7 +30,7 @@ The initial design is OVALIZED (like the sibling draft-tube demo): the
 optimizer must round the pressurized tube back out, dragging the four
 axial seams through the implicit CP -> xi solve at every step.
 
-Runs on real OpenMDAO when installed, else on goldfish_tpu.om_shim.
+Runs on real OpenMDAO when installed, else on goldfish_jax.om_shim.
 
 Run: python demos/tube_shopt_mi_4patch_wffd.py [--num-el 3]
 """
@@ -44,16 +44,16 @@ import numpy as np
 try:
     import openmdao.api as om
 except ModuleNotFoundError:
-    from goldfish_tpu.om_shim import api as om
+    from goldfish_jax.om_shim import api as om
 
-from goldfish_tpu.design.constraints import (
+from goldfish_jax.design.constraints import (
     align_expansion_operator,
     pin_operator,
     regu_operator,
 )
-from goldfish_tpu.design.pipeline import CPLayout, MultiShapeFFD
-from goldfish_tpu.models import tube
-from goldfish_tpu.om_comps.components import (
+from goldfish_jax.design.pipeline import CPLayout, MultiShapeFFD
+from goldfish_jax.models import tube
+from goldfish_jax.om_comps.components import (
     CPFFD2SurfComp,
     CPFFDAlignComp,
     CPFFDPinComp,
@@ -263,7 +263,7 @@ class ShapeOptGroup(om.Group):
         # FREE interior xi dofs — the edge/end-pinned coordinates sit
         # at exactly 0/1 by construction and would make a full-vector
         # KS bound unsatisfiable (geometry/cpiga2xi.xi_interior_dofs)
-        from goldfish_tpu.geometry.cpiga2xi import xi_interior_dofs
+        from goldfish_jax.geometry.cpiga2xi import xi_interior_dofs
 
         xi_size = int(np.prod(sys.c2x.xi0_flat.shape))
         self.xi_free = xi_interior_dofs(sys.mi)
@@ -366,7 +366,7 @@ if __name__ == "__main__":
     ap.add_argument("--num-el", type=int, default=3)
     ap.add_argument("--maxiter", type=int, default=6)
     a = ap.parse_args()
-    from goldfish_tpu import config
+    from goldfish_jax import config
 
     config.use_x64(True)
     main(num_el=a.num_el, maxiter=a.maxiter)

@@ -22,23 +22,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.design.pipeline import CPLayout
-from goldfish_tpu.models import wing
-from goldfish_tpu.physics import kl_shell
-from goldfish_tpu.physics.vlm import (
+from goldfish_jax.design.pipeline import CPLayout
+from goldfish_jax.models import wing
+from goldfish_jax.physics import kl_shell
+from goldfish_jax.physics.vlm import (
     build_lattice_param,
     forces_to_cp_field,
     lattice_points,
     solve_panel_forces,
 )
-from goldfish_tpu.solver.implicit import build_field_solve_fn
+from goldfish_jax.solver.implicit import build_field_solve_fn
 
 
 def build_coupled(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10,
                   alpha=0.06, q_dyn=40.0, n_fp=4, rtol=1e-9):
     """Returns (J_of_h, sys, h0): J_of_h(h) -> (W_int, (d, lift)) runs
     the coupled aeroelastic fixed point and is differentiable."""
-    from goldfish_tpu.ops.bspline_jax import make_surf_set
+    from goldfish_jax.ops.bspline_jax import make_surf_set
 
     sys_ = wing.build(n_chord=n_chord, n_span=n_span, num_el=num_el,
                       p=p, load_scale=0.0)
@@ -122,7 +122,7 @@ def main(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10, n_fp=4,
 
 if __name__ == "__main__":
     argparse.ArgumentParser().parse_args()
-    from goldfish_tpu import config
+    from goldfish_jax import config
 
     config.use_x64(True)
     main()

@@ -17,20 +17,20 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu import config
+from goldfish_jax import config
 
 
 def main(num_el=6, p=3, maxiter=20, results="./results/wing_thopt",
          verbose=True):
-    from goldfish_tpu.design.constraints import align_operator
-    from goldfish_tpu.design.pipeline import ThicknessFFD
-    from goldfish_tpu.models import wing
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import build_solve_fn
-    from goldfish_tpu.utils.checkpoint import Checkpointer, resume_run
-    from goldfish_tpu.utils.profiling import profiler
-    from goldfish_tpu.utils.vtk_io import SurfaceWriter
+    from goldfish_jax.design.constraints import align_operator
+    from goldfish_jax.design.pipeline import ThicknessFFD
+    from goldfish_jax.models import wing
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import build_solve_fn
+    from goldfish_jax.utils.checkpoint import Checkpointer, resume_run
+    from goldfish_jax.utils.profiling import profiler
+    from goldfish_jax.utils.vtk_io import SurfaceWriter
 
     sys_ = wing.build(num_el=num_el, p=p)
     th = ThicknessFFD(sys_, num_els=(4, 4, 1), p=(2, 2, 1))

@@ -9,7 +9,7 @@
 // geometry/preprocessing.py. Exposed with a plain C ABI for ctypes.
 //
 // Build: g++ -O3 -march=native -shared -fPIC geometry_kernel.cpp
-//        -o libgoldfish_geom.so      (see goldfish_tpu/geometry/native.py)
+//        -o libgoldfish_geom.so      (see goldfish_jax/geometry/native.py)
 
 #include <cmath>
 #include <cstring>

@@ -15,7 +15,7 @@ same objective/gradient is computed unsharded in one process.
 import os
 import sys
 
-os.environ.setdefault("GOLDFISH_TPU_X64", "1")
+os.environ.setdefault("GOLDFISH_X64", "1")
 
 import jax
 
@@ -31,9 +31,9 @@ def main():
 
     import jax.numpy as jnp
 
-    from goldfish_tpu.design.pipeline import ThicknessFFD
-    from goldfish_tpu.models import wing
-    from goldfish_tpu.parallel.sharding import (
+    from goldfish_jax.design.pipeline import ThicknessFFD
+    from goldfish_jax.models import wing
+    from goldfish_jax.parallel.sharding import (
         make_mesh,
         maybe_init_distributed,
         pad_state,
@@ -42,8 +42,8 @@ def main():
         shard_system,
         state_sharding,
     )
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import build_solve_fn_dataarg
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import build_solve_fn_dataarg
 
     if not reference:
         assert maybe_init_distributed() is True, "cluster spec not picked up"

@@ -10,10 +10,10 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 ADAPTERS = [
-    "goldfish_tpu/om_comps/components.py",
-    "goldfish_tpu/csdl_models/models.py",
-    "goldfish_tpu/nonmatching_opt_om.py",
-    "goldfish_tpu/nonmatching_opt_csdl.py",
+    "goldfish_jax/om_comps/components.py",
+    "goldfish_jax/csdl_models/models.py",
+    "goldfish_jax/nonmatching_opt_om.py",
+    "goldfish_jax/nonmatching_opt_csdl.py",
 ]
 
 
@@ -23,8 +23,8 @@ def test_adapter_sources_parse(rel):
 
 
 def test_umbrellas_fail_only_on_missing_dep():
-    for mod, dep in [("goldfish_tpu.nonmatching_opt_om", "openmdao"),
-                     ("goldfish_tpu.nonmatching_opt_csdl", "csdl_alpha")]:
+    for mod, dep in [("goldfish_jax.nonmatching_opt_om", "openmdao"),
+                     ("goldfish_jax.nonmatching_opt_csdl", "csdl_alpha")]:
         try:
             __import__(mod)
         except ModuleNotFoundError as e:

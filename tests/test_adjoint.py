@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from goldfish_tpu.models import tbeam
-from goldfish_tpu.physics import kl_shell
-from goldfish_tpu.solver.implicit import build_solve_fn, newton_solve
-from goldfish_tpu.solver.system import residual
+from goldfish_jax.models import tbeam
+from goldfish_jax.physics import kl_shell
+from goldfish_jax.solver.implicit import build_solve_fn, newton_solve
+from goldfish_jax.solver.system import residual
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +98,7 @@ def test_adjoint_with_follower_pressure():
     the tangent (hence the adjoint) must include — omitting it cost a
     silent 1.5% gradient error on pressurized models (round-2 fix).
     dJ/dh vs central FD on a pressurized tube."""
-    from goldfish_tpu.models import tube
+    from goldfish_jax.models import tube
 
     sys = tube.build(num_el=2, p=2, pressure=2.0e4)
     solve = build_solve_fn(sys.data, rtol=1e-11, max_it=30)

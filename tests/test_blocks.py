@@ -4,15 +4,15 @@ and the mixed-mode Newton/adjoint built on it (forced on CPU)."""
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.models import plate
-from goldfish_tpu.solver import linalg
-from goldfish_tpu.solver.blocks import (
+from goldfish_jax.models import plate
+from goldfish_jax.solver import linalg
+from goldfish_jax.solver.blocks import (
     block_gmres_solve,
     block_matvec,
     compute_blocks,
     dense_f32_from_blocks,
 )
-from goldfish_tpu.solver.system import assemble_K
+from goldfish_jax.solver.system import assemble_K
 
 
 def _sys():
@@ -55,12 +55,12 @@ def test_block_gmres_solves_exactly():
 
 
 def test_mixed_mode_gradient_parity():
-    """Force the TPU production path on CPU: Newton + adjoint through
+    """Force the mixed path on CPU: Newton + adjoint through
     the block operator must match 1e-6 FD parity."""
     import jax
 
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import build_solve_fn
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import build_solve_fn
 
     linalg.set_mode("mixed")
     try:

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from goldfish_tpu.models import boxwing
+from goldfish_jax.models import boxwing
 
 
 def test_boxwing_solves():

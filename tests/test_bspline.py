@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from goldfish_tpu.ops.bspline import (
+from goldfish_jax.ops.bspline import (
     basis_at_points,
     ders_basis_funs,
     find_span,
@@ -12,7 +12,7 @@ from goldfish_tpu.ops.bspline import (
     rational_basis_2d,
     unique_spans,
 )
-from goldfish_tpu.ops.refine import (
+from goldfish_jax.ops.refine import (
     degree_elevation_operator,
     insert_knot_operator,
     refine_knots_operator,
@@ -133,7 +133,7 @@ def test_refine_and_elevate_preserve_curve():
 
 def test_rational_basis_2d_reproduces_surface():
     """NURBS basis tables must reproduce an exact quarter cylinder."""
-    from goldfish_tpu.geometry.cadkit import circle, ruled, line
+    from goldfish_jax.geometry.cadkit import circle, ruled, line
 
     arc0 = circle(center=[0, 0, 0], radius=2.0, angle=(0, np.pi / 2))
     arc1 = circle(center=[0, 0, 3], radius=2.0, angle=(0, np.pi / 2))
@@ -164,7 +164,7 @@ def test_rational_basis_2d_reproduces_surface():
 
 
 def test_circle_exactness():
-    from goldfish_tpu.geometry.cadkit import circle
+    from goldfish_jax.geometry.cadkit import circle
 
     arc = circle(center=[1, 2, 0], radius=3.0, angle=(0.3, 2.8))
     us = np.linspace(0, 1, 40)
@@ -174,7 +174,7 @@ def test_circle_exactness():
 
 
 def test_revolve_exactness():
-    from goldfish_tpu.geometry.cadkit import line, revolve
+    from goldfish_jax.geometry.cadkit import line, revolve
 
     gen = line([2.0, 0.0, 0.0], [3.0, 0.0, 5.0])
     srf = revolve(gen, point=(0, 0, 0), axis=(0, 0, 1), angle=(0.0, np.pi))

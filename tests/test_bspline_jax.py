@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.models.slr import roof_patch
-from goldfish_tpu.models.tbeam import create_surf
-from goldfish_tpu.ops.bspline import rational_basis_2d
-from goldfish_tpu.ops.bspline_jax import make_surf_set, surface_point
+from goldfish_jax.models.slr import roof_patch
+from goldfish_jax.models.tbeam import create_surf
+from goldfish_jax.ops.bspline import rational_basis_2d
+from goldfish_jax.ops.bspline_jax import make_surf_set, surface_point
 
 
 def _check_surface(surfs, pts):

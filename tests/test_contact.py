@@ -21,9 +21,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.geometry.cadkit import bilinear
-from goldfish_tpu.physics.contact import build_contact, contact_energy
-from goldfish_tpu.solver.system import NonMatchingSystem, total_potential
+from goldfish_jax.geometry.cadkit import bilinear
+from goldfish_jax.physics.contact import build_contact, contact_energy
+from goldfish_jax.solver.system import NonMatchingSystem, total_potential
 
 
 def _two_plates(gap=0.02, num_el=4, p=2):
@@ -97,7 +97,7 @@ def _press_problem(q=120.0, k_pen=1e7, num_el=4, p=2):
 def test_contact_tangent_matches_ad_oracle():
     """assemble_K at a contact-active state == jacobian of the
     residual (the tangent/adjoint consistency hole of round 2)."""
-    from goldfish_tpu.solver.system import assemble_K, residual
+    from goldfish_jax.solver.system import assemble_K, residual
 
     sys = _press_problem(num_el=3)
     data = sys.data
@@ -118,12 +118,12 @@ def test_contact_equilibrium_and_adjoint():
     """Load-continuation Newton reaches a contact-ACTIVE equilibrium
     (residual to the floor, contact energy > 0), and the implicit
     adjoint gradient dJ/dh THROUGH that equilibrium FD-verifies."""
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver.implicit import (
+    from goldfish_jax.physics import kl_shell
+    from goldfish_jax.solver.implicit import (
         build_solve_fn,
         continuation_solve,
     )
-    from goldfish_tpu.solver.system import residual
+    from goldfish_jax.solver.system import residual
 
     sys = _press_problem()
     data = sys.data

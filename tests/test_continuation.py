@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.models import plate
-from goldfish_tpu.solver.implicit import continuation_solve, newton_solve
-from goldfish_tpu.solver.system import residual
+from goldfish_jax.models import plate
+from goldfish_jax.solver.implicit import continuation_solve, newton_solve
+from goldfish_jax.solver.system import residual
 
 
 def test_continuation_matches_direct_solve():

@@ -4,8 +4,8 @@ elevation+refinement operator and constraint-row semantics
 
 import numpy as np
 
-from goldfish_tpu.design.cp_design import CPSurfDesign2Analysis
-from goldfish_tpu.models.tbeam import create_surf
+from goldfish_jax.design.cp_design import CPSurfDesign2Analysis
+from goldfish_jax.models.tbeam import create_surf
 
 
 def _surfs():
@@ -60,7 +60,7 @@ def test_align_expansion_operator_reproduces_align_null_space():
     design values (x_full[reps] == x)."""
     import numpy as np
 
-    from goldfish_tpu.design.constraints import (
+    from goldfish_jax.design.constraints import (
         align_expansion_operator,
         align_operator,
     )
@@ -93,7 +93,7 @@ def test_xi_interior_dofs_excludes_pinned_coordinates():
     import numpy as np
 
     from demos.draft_tube_shopt_mi_wffd import build_mi_tube
-    from goldfish_tpu.geometry.cpiga2xi import (
+    from goldfish_jax.geometry.cpiga2xi import (
         xi_edge_constraints,
         xi_interior_dofs,
     )
@@ -148,7 +148,7 @@ def test_xi_interior_dofs_keeps_unforced_boundary_starts():
     import numpy as np
 
     from demos.draft_tube_shopt_mi_wffd import build_mi_tube
-    from goldfish_tpu.geometry.cpiga2xi import (
+    from goldfish_jax.geometry.cpiga2xi import (
         xi_edge_constraints,
         xi_interior_dofs,
     )

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from goldfish_tpu.geometry.cpiga2xi import CPIGA2Xi
-from goldfish_tpu.models import tbeam
-from goldfish_tpu.physics.coupling import InterfaceSpec
+from goldfish_jax.geometry.cpiga2xi import CPIGA2Xi
+from goldfish_jax.models import tbeam
+from goldfish_jax.physics.coupling import InterfaceSpec
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +55,7 @@ def test_solve_bent_web(tb_geo):
     # intersection curve bends toward +x: u_A > 0.5 in the interior
     assert xi[1:-1, 0, 0].min() > 0.5 + 1e-3
     # both sides' physical points coincide
-    from goldfish_tpu.ops.bspline_jax import surface_point
+    from goldfish_jax.ops.bspline_jax import surface_point
     for k in (0, n // 2, n - 1):
         SA = surface_point(c2x.ss, c2x.p, c2x.q, 0, cp,
                            jnp.asarray(xi[k, 0]))
@@ -96,10 +96,10 @@ def _skewed_tbeam(skew_side, num_el=4, p=3, n_pts=13):
     heavy skew on either side."""
     import numpy as np
 
-    from goldfish_tpu.geometry.cadkit import line, ruled
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.physics.coupling import InterfaceSpec
-    from goldfish_tpu.solver.system_mi import MINonMatchingSystem
+    from goldfish_jax.geometry.cadkit import line, ruled
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.physics.coupling import InterfaceSpec
+    from goldfish_jax.solver.system_mi import MINonMatchingSystem
 
     def surf(pts, ne0, ne1, p, skew):
         s = ruled(line(pts[0], pts[1]), line(pts[2], pts[3]))
@@ -139,7 +139,7 @@ def test_xi_solve_skewed_parametrization(skew_side):
     import jax.numpy as jnp
     import numpy as np
 
-    from goldfish_tpu.ops.bspline_jax import surface_point
+    from goldfish_jax.ops.bspline_jax import surface_point
 
     sys = _skewed_tbeam(skew_side)
     c2x = sys.c2x
@@ -171,7 +171,7 @@ def test_full_chain_gradient_skewed(skew_side):
     import jax.numpy as jnp
     import numpy as np
 
-    from goldfish_tpu.physics import kl_shell
+    from goldfish_jax.physics import kl_shell
 
     sys = _skewed_tbeam(skew_side, num_el=3, p=2, n_pts=9)
     forward = sys.build_forward(rtol=1e-11, max_it=25)

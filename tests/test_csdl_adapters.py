@@ -15,7 +15,7 @@ import pytest
 try:
     import csdl_alpha as csdl
 except ModuleNotFoundError:
-    from goldfish_tpu import csdl_shim as csdl
+    from goldfish_jax import csdl_shim as csdl
 
 from demos.csdl_plate_const_th_opt import build_recorder
 
@@ -28,8 +28,8 @@ def plate_graph():
 
 def test_csdl_graph_matches_direct_evaluation(plate_graph):
     """Inline graph evaluation == direct library evaluation."""
-    from goldfish_tpu.design.pipeline import CPLayout
-    from goldfish_tpu.physics import objectives
+    from goldfish_jax.design.pipeline import CPLayout
+    from goldfish_jax.physics import objectives
 
     _, v, sys = plate_graph
     lay = CPLayout(sys.metas, sys.stack.max_cp)
@@ -154,15 +154,15 @@ def _mi_graph():
     counterpart of the OM MI graph in demos/om_tbeam_shopt_mi.py)."""
     import jax.numpy as jnp
 
-    from goldfish_tpu.csdl_models.models import (
+    from goldfish_jax.csdl_models.models import (
         CPIGA2XiModel,
         DispMintStatesModel,
         IntEnergyModel,
     )
-    from goldfish_tpu.design.pipeline import CPLayout
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.physics.coupling import InterfaceSpec
-    from goldfish_tpu.solver.system_mi import MINonMatchingSystem
+    from goldfish_jax.design.pipeline import CPLayout
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.physics.coupling import InterfaceSpec
+    from goldfish_jax.solver.system_mi import MINonMatchingSystem
 
     w2 = tbeam.WIDTH / 2
     pts0 = [[-w2, 0, 0], [w2, 0, 0], [-w2, tbeam.LENGTH, 0],

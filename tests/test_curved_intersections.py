@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from goldfish_tpu.geometry.preprocessing import Preprocessor
-from goldfish_tpu.models import tbeam
-from goldfish_tpu.physics import kl_shell
-from goldfish_tpu.solver.system_mi import MINonMatchingSystem
+from goldfish_jax.geometry.preprocessing import Preprocessor
+from goldfish_jax.models import tbeam
+from goldfish_jax.physics import kl_shell
+from goldfish_jax.solver.system_mi import MINonMatchingSystem
 
 AMP = 0.06  # web sweep amplitude (chord units)
 
@@ -36,7 +36,7 @@ def _curved_tbeam_surfs(num_el=4, p=3):
     bend = AMP * np.sin(np.pi * gv)
     w = ctrl[..., 3:4]
     ctrl[..., 0:1] = ctrl[..., 0:1] + bend[None, :, None] * w
-    from goldfish_tpu.geometry.nurbs import NURBS
+    from goldfish_jax.geometry.nurbs import NURBS
 
     web_curved = NURBS(web.knots, ctrl)
     return flange, web_curved
@@ -56,7 +56,7 @@ def test_traced_curve_is_curved_and_coincident(curved_pre):
     xiA, xiB = pre.intersections_para_coords[0]
     assert xiA.shape[0] >= 5
     # physical coincidence of the traced polylines
-    from goldfish_tpu.geometry.preprocessing import _eval_many
+    from goldfish_jax.geometry.preprocessing import _eval_many
 
     XA = _eval_many(flange, xiA, nd=0)[(0, 0)]
     XB = _eval_many(web, xiB, nd=0)[(0, 0)]

@@ -177,8 +177,8 @@ def test_evtol_mi_variant_design_maps():
 
     from demos.evtol_wing_shopt_mi import (
         BOX_H, HALF_SPAN, VARIANTS, build_system, design_map)
-    from goldfish_tpu.design.pipeline import CPLayout
-    from goldfish_tpu.ops.bspline import rational_basis_2d
+    from goldfish_jax.design.pipeline import CPLayout
+    from goldfish_jax.ops.bspline import rational_basis_2d
 
     sys_ = build_system(num_el=2, p=2)
     lay = CPLayout(sys_.metas, sys_.stack.max_cp)

@@ -10,9 +10,9 @@ Each test isolates one mechanical mode:
 import numpy as np
 import pytest
 
-from goldfish_tpu.geometry.cadkit import bilinear, circle, line, ruled
-from goldfish_tpu.geometry.patch_stack import side_dofs
-from goldfish_tpu.solver.system import NonMatchingSystem
+from goldfish_jax.geometry.cadkit import bilinear, circle, line, ruled
+from goldfish_jax.geometry.patch_stack import side_dofs
+from goldfish_jax.solver.system import NonMatchingSystem
 
 
 def test_cantilever_plate_bending():
@@ -76,7 +76,7 @@ def test_membrane_cylinder_energy():
     import jax
     import jax.numpy as jnp
 
-    from goldfish_tpu.physics.kl_shell import internal_energy, surface_fields
+    from goldfish_jax.physics.kl_shell import internal_energy, surface_fields
 
     R, Lz, h, E = 10.0, 2.0, 0.05, 1e7
     p_in = 1.0e-2
@@ -117,7 +117,7 @@ def test_membrane_cylinder_energy():
 def test_two_patch_plate_coupling_patch_test():
     """Two coplanar plate patches penalty-coupled must reproduce the
     single-plate cantilever (displacement-continuity patch test)."""
-    from goldfish_tpu.physics.coupling import InterfaceSpec
+    from goldfish_jax.physics.coupling import InterfaceSpec
 
     E, nu, h, q = 1e7, 0.0, 0.1, 1e-5
     Lx, Ly = 10.0, 1.0
@@ -150,12 +150,12 @@ def test_jet_hessians_match_dense_ad():
     vmapped-jax.hessian oracle (the round-1 implementation)."""
     import jax.numpy as jnp
 
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.physics.coupling import (
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.physics.coupling import (
         _interface_hessians_ref,
         interface_hessians,
     )
-    from goldfish_tpu.physics.kl_shell import (
+    from goldfish_jax.physics.kl_shell import (
         _element_hessians_ref,
         element_hessians,
     )
@@ -180,8 +180,8 @@ def test_matmul_assembly_matches_scatter():
     """Matmul-based assemble_K must equal the scatter oracle."""
     import jax.numpy as jnp
 
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.solver.system import _assemble_K_scatter, assemble_K
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.solver.system import _assemble_K_scatter, assemble_K
 
     sys = tbeam.build(num_el=3, p=3)
     rng = np.random.default_rng(1)

@@ -3,15 +3,15 @@
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.models import plate
-from goldfish_tpu.solver.implicit import newton_solve
-from goldfish_tpu.solver.krylov import (
+from goldfish_jax.models import plate
+from goldfish_jax.solver.implicit import newton_solve
+from goldfish_jax.solver.krylov import (
     PairSchwarz,
     gmres_solve,
     newton_krylov_solve,
     patch_block_precond,
 )
-from goldfish_tpu.solver.system import assemble_K, tangent_matvec
+from goldfish_jax.solver.system import assemble_K, tangent_matvec
 
 
 def test_tangent_matvec_matches_dense():

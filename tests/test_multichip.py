@@ -1,5 +1,11 @@
-"""Driver entry points: single-chip compile check and the 8-virtual-
-device patch-sharded dry run (conftest forces 8 CPU devices)."""
+"""Driver entry points: single-device compile check and the 8-virtual-
+device patch-sharded dry run (conftest forces 8 CPU devices).
+
+CPU only. The two-process `jax.distributed` test spawns its workers
+under JAX_PLATFORMS=cpu with virtual devices; do not point it at a
+GPU: each spawned JAX process would reserve most of the card's memory
+and the second would fail. The sharded path on real GPUs is
+`python chip_smoke.py --chips 4`, one process for all four cards."""
 
 import importlib.util
 import pathlib
@@ -27,7 +33,7 @@ def test_entry_compiles():
     assert float(rn) > 0.0
 
 
-@pytest.mark.slow  # duplicates the driver-run MULTICHIP artifact (386 s)
+@pytest.mark.slow  # the full CPU rehearsal (~390 s)
 def test_dryrun_multichip_8():
     assert len(jax.devices()) >= 8
     mod = _load_graft()
@@ -65,7 +71,7 @@ def test_two_process_jax_distributed_gradient_parity(tmp_path):
                                      "JAX_"))}
     base_env["PYTHONPATH"] = repo
     base_env["JAX_PLATFORMS"] = "cpu"
-    base_env["GOLDFISH_TPU_X64"] = "1"
+    base_env["GOLDFISH_X64"] = "1"
 
     out = str(tmp_path / "dist")
     procs = []

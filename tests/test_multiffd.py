@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.design.pipeline import MultiShapeFFD, MultiThicknessFFD
-from goldfish_tpu.models import plate
+from goldfish_jax.design.pipeline import MultiShapeFFD, MultiThicknessFFD
+from goldfish_jax.models import plate
 
 
 def test_multi_thickness_partition_of_unity():

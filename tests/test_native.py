@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from goldfish_tpu.geometry import native
-from goldfish_tpu.geometry.preprocessing import (
+from goldfish_jax.geometry import native
+from goldfish_jax.geometry.preprocessing import (
     _eval_many,
     closest_point_projection,
 )
-from goldfish_tpu.models.slr import roof_patch
+from goldfish_jax.models.slr import roof_patch
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C++ toolchain")

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from goldfish_tpu.models import plate
-from goldfish_tpu.physics import kl_shell, objectives
-from goldfish_tpu.solver.implicit import build_solve_fn
+from goldfish_jax.models import plate
+from goldfish_jax.physics import kl_shell, objectives
+from goldfish_jax.solver.implicit import build_solve_fn
 
 
 @pytest.fixture(scope="module")
@@ -95,8 +95,8 @@ def test_vmstress_field_operation(solved_plate):
     """Per-qp von Mises FIELD operation (reference
     csdl_models/vmstress_model.py role): values match qp_stress_vm and
     the dense Jacobian FD-verifies."""
-    from goldfish_tpu.design.pipeline import CPLayout
-    from goldfish_tpu.operations.exops import VMStressExOperation
+    from goldfish_jax.design.pipeline import CPLayout
+    from goldfish_jax.operations.exops import VMStressExOperation
 
     sys, d = solved_plate
     op = VMStressExOperation(sys, through="top")
@@ -134,8 +134,8 @@ def test_cp_regu_energy():
     import jax.numpy as jnp
     import numpy as np
 
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.physics.objectives import (
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.physics.objectives import (
         cp_regu_energy,
         internal_energy_regu,
     )
@@ -186,10 +186,10 @@ def test_int_energy_regu_exop_and_comp():
     try:
         import openmdao.api as om
     except ModuleNotFoundError:
-        from goldfish_tpu.om_shim import api as om
+        from goldfish_jax.om_shim import api as om
 
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.om_comps.components import IntEnergyReguComp
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.om_comps.components import IntEnergyReguComp
 
     sys = tbeam.build(num_el=3, p=2)
     comp = IntEnergyReguComp(nonmatching_sys=sys,

@@ -23,7 +23,7 @@ def plate_prob():
 
 def test_om_graph_matches_direct_evaluation(plate_prob):
     """run_model through the comp graph == direct library evaluation."""
-    from goldfish_tpu.physics import objectives
+    from goldfish_jax.physics import objectives
 
     prob, sys, th = plate_prob
     d_flat = prob["disp_states_comp.displacements"]
@@ -89,11 +89,11 @@ def test_surf_pipeline_comps():
     try:
         import openmdao.api as om
     except ModuleNotFoundError:
-        from goldfish_tpu.om_shim import api as om
+        from goldfish_jax.om_shim import api as om
 
-    from goldfish_tpu.design.cp_design import CPSurfDesign2Analysis
-    from goldfish_tpu.models import tbeam
-    from goldfish_tpu.om_comps.components import (
+    from goldfish_jax.design.cp_design import CPSurfDesign2Analysis
+    from goldfish_jax.models import tbeam
+    from goldfish_jax.om_comps.components import (
         CPSurfAlignComp,
         CPSurfKnotRefienmentComp,
         CPSurfOrderElevationComp,
@@ -217,9 +217,9 @@ def test_vmstress_comp(plate_prob):
     try:
         import openmdao.api as om
     except ModuleNotFoundError:
-        from goldfish_tpu.om_shim import api as om
+        from goldfish_jax.om_shim import api as om
 
-    from goldfish_tpu.om_comps.components import VMStressComp
+    from goldfish_jax.om_comps.components import VMStressComp
 
     prob, sys, th = plate_prob
     comp = VMStressComp(nonmatching_sys=sys)
@@ -255,9 +255,9 @@ def test_ks_aggregation_comps():
     try:
         import openmdao.api as om
     except ModuleNotFoundError:
-        from goldfish_tpu.om_shim import api as om
+        from goldfish_jax.om_shim import api as om
 
-    from goldfish_tpu.om_comps.components import (
+    from goldfish_jax.om_comps.components import (
         CPFFDReguCompAgg,
         MaxIntXiComp,
         MinIntXiComp,

@@ -28,7 +28,7 @@ import pytest
 try:
     import openmdao.api as om
 except ModuleNotFoundError:
-    from goldfish_tpu.om_shim import api as om
+    from goldfish_jax.om_shim import api as om
 
 
 class _ImplicitScale(om.ImplicitComponent):

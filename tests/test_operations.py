@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from goldfish_tpu.models import tbeam
-from goldfish_tpu.operations import DispImOperation, IntEnergyExOperation
-from goldfish_tpu.physics import kl_shell
-from goldfish_tpu.solver.implicit import build_solve_fn
+from goldfish_jax.models import tbeam
+from goldfish_jax.operations import DispImOperation, IntEnergyExOperation
+from goldfish_jax.physics import kl_shell
+from goldfish_jax.solver.implicit import build_solve_fn
 
 
 @pytest.fixture(scope="module")

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from goldfish_tpu.geometry.cpiga2xi import xi_edge_constraints
-from goldfish_tpu.operations.disp_mi_imop import (
+from goldfish_jax.geometry.cpiga2xi import xi_edge_constraints
+from goldfish_jax.operations.disp_mi_imop import (
     CPIGA2XiImOperation,
     DispMintImOperation,
 )

@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.opt.problem import OptProblem
+from goldfish_jax.opt.problem import OptProblem
 
 
 def test_run_slsqp_callback_is_memoized():

@@ -17,15 +17,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from goldfish_tpu.models import plate, tbeam
-from goldfish_tpu.physics.coupling import InterfaceSpec
-from goldfish_tpu.solver import devicechol, linalg
-from goldfish_tpu.solver.implicit import (
+from goldfish_jax.models import plate, tbeam
+from goldfish_jax.physics.coupling import InterfaceSpec
+from goldfish_jax.solver import devicechol, linalg
+from goldfish_jax.solver.implicit import (
     _adjoint_solve_direct,
     adjoint_solve,
     newton_solve_host,
 )
-from goldfish_tpu.solver.system_mi import (
+from goldfish_jax.solver.system_mi import (
     MINonMatchingSystem,
     PersistentDeviceFactorMI,
     _adjoint_solve_mi_direct,
@@ -198,8 +198,8 @@ def test_mi_rho_refresh_unpins_mediocre_factor(mixed_mode):
     rho ~0.26/sweep forever — no drift heuristic fires, and every
     direction/adjoint pays 3x the jvp sweeps. The rho-aware entry
     refresh must spend ONE refactorization at the next warm entry and
-    restore fresh-grade contraction (scripts/diag_mi_wb.py measured
-    n=6 certs ~3e-4 before, n=2 certs ~1e-7..1e-11 after)."""
+    restore fresh-grade contraction (n=6 certs ~3e-4 before, n=2
+    certs ~1e-7..1e-11 after)."""
     sys = _mi_tbeam()
     data, mi, co, ss = sys.data, sys.mi, sys.co, sys.ss
     p, q = sys.pdeg, sys.qdeg
@@ -210,7 +210,7 @@ def test_mi_rho_refresh_unpins_mediocre_factor(mixed_mode):
                                     sys.zero_displacement(),
                                     rtol=1e-9, device_fac=fac)
     # pin the factor at a mid-Newton-grade iterate (~3e-2 d-stale, the
-    # drift scripts/diag_mi_wb.py measured — BELOW the 0.2 gross-
+    # drift observed in such a warm loop — BELOW the 0.2 gross-
     # staleness branch) and seed rho_est with the measured-mediocre
     # value the warm loop's finish_ir would have left (the policy keys
     # on MEASURED contraction, not a drift heuristic)
@@ -267,8 +267,8 @@ def test_mi_adjoint_pipeline_warm_hit(mixed_mode):
 
 
 def test_mi_nonfinite_inputs_do_not_refactor_or_poison_policy(mixed_mode):
-    """MI variant of the devicechol NaN triage (see
-    tests/test_tpu_cholesky.py): a non-finite rhs through the MI
+    """MI variant of the devicechol NaN triage (see the blocked-Cholesky
+    tests): a non-finite rhs through the MI
     persistent factor must not refactor at the garbage state, burn
     retry attempts, or poison rho_est — and the untouched factor must
     still solve exactly afterwards."""

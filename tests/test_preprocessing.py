@@ -9,8 +9,8 @@ import os
 import numpy as np
 import pytest
 
-from goldfish_tpu.geometry.igs_io import read_igs_file
-from goldfish_tpu.geometry.preprocessing import (
+from goldfish_jax.geometry.igs_io import read_igs_file
+from goldfish_jax.geometry.preprocessing import (
     Preprocessor,
     closest_point_projection,
 )
@@ -102,8 +102,8 @@ def test_load_reference_cache(plate_surfs):
 def test_igs_writer_roundtrip(tmp_path):
     """write_igs_file -> read_igs_file reproduces control nets exactly
     (the reference relies on OCC for IGES output; SURVEY.md 2.4)."""
-    from goldfish_tpu.geometry.igs_io import read_igs_file, write_igs_file
-    from goldfish_tpu.models import boxwing
+    from goldfish_jax.geometry.igs_io import read_igs_file, write_igs_file
+    from goldfish_jax.models import boxwing
 
     sys = boxwing.build(n_sections=2, num_el=2, p=2)
     path = str(tmp_path / "wing.igs")
@@ -120,13 +120,13 @@ def test_step_roundtrip_and_refine(tmp_path):
     """STEP Part-21 B-spline surface import/export (reference reaches
     STEP only through pythonOCC; round-1 verdict missing #8), plus the
     reparametrize/refine-on-import pipeline."""
-    from goldfish_tpu.geometry.cadkit import circle, extrude
-    from goldfish_tpu.geometry.step_io import (
+    from goldfish_jax.geometry.cadkit import circle, extrude
+    from goldfish_jax.geometry.step_io import (
         read_step_file,
         refine_surfaces,
         write_step_file,
     )
-    from goldfish_tpu.models import tbeam
+    from goldfish_jax.models import tbeam
 
     s0 = tbeam.create_surf([[-1, 0, 0], [1, 0, 0], [-1, 4, 0],
                             [1, 4, 0]], 2, 3, 3)
@@ -151,8 +151,8 @@ def test_igs_curve_roundtrip(tmp_path):
     """Type-126 rational B-spline curves: write_igs_file(curves=...) ->
     read_igs_curves reproduces homogeneous control exactly, mixed in a
     file that also carries 128 surfaces (IGES 5.3 entity 126)."""
-    from goldfish_tpu.geometry.cadkit import circle, line, ruled
-    from goldfish_tpu.geometry.igs_io import (
+    from goldfish_jax.geometry.cadkit import circle, line, ruled
+    from goldfish_jax.geometry.igs_io import (
         read_igs_curves,
         read_igs_file,
         write_igs_file,
@@ -181,14 +181,14 @@ def test_step_assembly_roundtrip(tmp_path):
     (REPRESENTATION_RELATIONSHIP ... WITH_TRANSFORMATION) placements
     resolved by read_step_assembly (the role OCC's STEP assembly
     resolution plays for the reference's read_stp_file)."""
-    from goldfish_tpu.geometry.cadkit import circle, extrude
-    from goldfish_tpu.geometry.step_io import (
+    from goldfish_jax.geometry.cadkit import circle, extrude
+    from goldfish_jax.geometry.step_io import (
         read_step_assembly,
         read_step_file,
         transform_surface,
         write_step_assembly,
     )
-    from goldfish_tpu.models import tbeam
+    from goldfish_jax.models import tbeam
 
     s0 = tbeam.create_surf([[-1, 0, 0], [1, 0, 0], [-1, 4, 0],
                             [1, 4, 0]], 2, 3, 3)
@@ -230,7 +230,7 @@ def test_step_assembly_roundtrip(tmp_path):
     assert len(masters) == 2
 
     # a non-assembly file passes through read_step_assembly unchanged
-    from goldfish_tpu.geometry.step_io import write_step_file
+    from goldfish_jax.geometry.step_io import write_step_file
 
     flat = str(tmp_path / "flat.stp")
     write_step_file(flat, [s0, s1])
@@ -245,7 +245,7 @@ def test_step_axis_frame_degenerate_refdir():
     ref_direction and no explicit ref_direction must not produce a
     NaN frame (ISO 10303-42 allows deriving any non-parallel
     default)."""
-    from goldfish_tpu.geometry.step_io import _axis_frame
+    from goldfish_jax.geometry.step_io import _axis_frame
 
     ents = {1: "AXIS2_PLACEMENT_3D('',#2,#3,$)",
             2: "CARTESIAN_POINT('',(1.,2.,3.))",
@@ -268,13 +268,13 @@ def test_step_product_structure(tmp_path):
     imports)."""
     import re as _re
 
-    from goldfish_tpu.geometry.cadkit import circle, extrude
-    from goldfish_tpu.geometry.step_io import (
+    from goldfish_jax.geometry.cadkit import circle, extrude
+    from goldfish_jax.geometry.step_io import (
         read_step_assembly,
         transform_surface,
         write_step_assembly,
     )
-    from goldfish_tpu.models import tbeam
+    from goldfish_jax.models import tbeam
 
     s0 = tbeam.create_surf([[-1, 0, 0], [1, 0, 0], [-1, 4, 0],
                             [1, 4, 0]], 2, 3, 3)
@@ -327,7 +327,7 @@ def test_step_product_structure(tmp_path):
             atol=1e-10)
 
     # structure-less files still return meta (product None)
-    from goldfish_tpu.geometry.step_io import write_step_file
+    from goldfish_jax.geometry.step_io import write_step_file
 
     flat = str(tmp_path / "flat.stp")
     write_step_file(flat, [s0])

@@ -3,7 +3,7 @@
 `OptProblem._run_pyoptsparse` (the reference's SNOPT route,
 reference: demos_om/thickness_opt/plate/plate_var_th_opt_wint.py:342-361)
 had never run because pyoptsparse is not in the image.  These tests run
-it end-to-end on the in-repo API shim (goldfish_tpu/pyoptsparse_shim.py)
+it end-to-end on the in-repo API shim (goldfish_jax/pyoptsparse_shim.py)
 and pin the shim's own calling conventions to pyOptSparse's documented
 behavior (objFun/sens tuple returns, dict-of-dicts sens layout,
 sens='FD' fallback, option-name translation).
@@ -14,8 +14,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from goldfish_tpu import pyoptsparse_shim as pos
-from goldfish_tpu.opt.problem import OptProblem
+from goldfish_jax import pyoptsparse_shim as pos
+from goldfish_jax.opt.problem import OptProblem
 
 
 # --------------------------------------------------------------- helpers

@@ -6,9 +6,9 @@ load-controlled Newton (GOLDFISH/utils/opt_utils.py:135-154) jumps.
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.geometry.cadkit import circle, extrude
-from goldfish_tpu.solver.riks import riks_solve
-from goldfish_tpu.solver.system import NonMatchingSystem, residual, scale_loads
+from goldfish_jax.geometry.cadkit import circle, extrude
+from goldfish_jax.solver.riks import riks_solve
+from goldfish_jax.solver.system import NonMatchingSystem, residual, scale_loads
 
 
 def _panel(num_el=6, p=2):

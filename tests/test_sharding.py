@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from goldfish_tpu.models import wing
-from goldfish_tpu.parallel.sharding import (
+from goldfish_jax.models import wing
+from goldfish_jax.parallel.sharding import (
     make_mesh,
     maybe_init_distributed,
     pad_state,
@@ -17,8 +17,8 @@ from goldfish_tpu.parallel.sharding import (
     shard_system,
     state_sharding,
 )
-from goldfish_tpu.solver.implicit import newton_solve
-from goldfish_tpu.solver.system import residual, total_potential
+from goldfish_jax.solver.implicit import newton_solve
+from goldfish_jax.solver.system import residual, total_potential
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +81,7 @@ def test_maybe_init_distributed_guarded(monkeypatch):
     initialize call is mocked and only the guard/plumbing is pinned
     (the mesh/padding logic it feeds is exercised on 8 virtual devices
     by the other tests and by dryrun_multichip)."""
-    from goldfish_tpu import _boot
+    from goldfish_jax import _boot
 
     calls = []
 

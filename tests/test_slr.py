@@ -8,8 +8,8 @@ vertical displacement at the free-edge midpoint in the LINEAR regime
 import numpy as np
 import pytest
 
-from goldfish_tpu.models import slr
-from goldfish_tpu.solver.system import NonMatchingSystem
+from goldfish_jax.models import slr
+from goldfish_jax.solver.system import NonMatchingSystem
 
 
 def test_single_patch_qoi():

@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from goldfish_tpu.design.constraints import align_operator
-from goldfish_tpu.design.pipeline import ThicknessFFD
-from goldfish_tpu.models import plate
-from goldfish_tpu.opt.problem import OptProblem
-from goldfish_tpu.physics import kl_shell
-from goldfish_tpu.solver.implicit import build_solve_fn
+from goldfish_jax.design.constraints import align_operator
+from goldfish_jax.design.pipeline import ThicknessFFD
+from goldfish_jax.models import plate
+from goldfish_jax.opt.problem import OptProblem
+from goldfish_jax.physics import kl_shell
+from goldfish_jax.solver.implicit import build_solve_fn
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +89,7 @@ def test_patch_constant_thickness_map(plate_sys):
     block-of-ones, GOLDFISH/om_comps/ffd_comps/hth_map_comp.py:48-56)."""
     import jax
 
-    from goldfish_tpu.design.pipeline import PatchConstantThickness
+    from goldfish_jax.design.pipeline import PatchConstantThickness
 
     sys = plate_sys
     th = PatchConstantThickness(sys)

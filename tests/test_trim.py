@@ -9,23 +9,23 @@ handling to OpenCASCADE); this build honors trims natively
 import numpy as np
 import pytest
 
-from goldfish_tpu.geometry.cadkit import bilinear
-from goldfish_tpu.geometry.igs_io import (
+from goldfish_jax.geometry.cadkit import bilinear
+from goldfish_jax.geometry.igs_io import (
     read_igs_file,
     read_igs_trimmed,
     write_igs_file,
 )
-from goldfish_tpu.geometry.nurbs import NURBS
-from goldfish_tpu.geometry.patch_stack import (
+from goldfish_jax.geometry.nurbs import NURBS
+from goldfish_jax.geometry.patch_stack import (
     build_patch_stack,
     stack_control_points,
 )
-from goldfish_tpu.geometry.trim import (
+from goldfish_jax.geometry.trim import (
     points_in_polygon,
     sample_loop,
     trim_mask,
 )
-from goldfish_tpu.physics.kl_shell import internal_energy, volume
+from goldfish_jax.physics.kl_shell import internal_energy, volume
 
 
 def _plate(nel=8):
@@ -82,8 +82,8 @@ def test_trimmed_area_circular_hole():
     (exact polygon-cell clipping) integrate the area to the trim
     polygon's chord error — independent of subdiv — vs O(band) for
     binary Gauss masking."""
-    from goldfish_tpu.ops.quadrature import build_patch_quadrature
-    from goldfish_tpu.geometry.trim import apply_trim
+    from goldfish_jax.ops.quadrature import build_patch_quadrature
+    from goldfish_jax.geometry.trim import apply_trim
 
     r = 0.25
     surf = _plate(nel=8)
@@ -141,7 +141,7 @@ def test_trimmed_solve_softens_plate():
     """Equilibrium through NonMatchingSystem on a trimmed patch: a
     cantilever plate with a central hole deflects MORE than the solid
     plate under the same load, and the solve stays finite."""
-    from goldfish_tpu.solver.system import NonMatchingSystem
+    from goldfish_jax.solver.system import NonMatchingSystem
 
     E, nu, h, q = 1e7, 0.3, 0.05, 1e-4
     hole = _circle_poly(0.5, 0.5, 0.25)
@@ -182,7 +182,7 @@ def test_igs_trim_roundtrip(tmp_path):
     write_igs_file(path, [surf, _plate(nel=2)],
                    curves=[model_curve],
                    trims=[([ocurve], [segs]), None])
-    from goldfish_tpu.geometry.igs_io import read_igs_curves
+    from goldfish_jax.geometry.igs_io import read_igs_curves
 
     model_back = read_igs_curves(path)
     assert len(model_back) == 1
@@ -209,8 +209,8 @@ def test_zero_support_cps_pinned():
     """A CP whose entire basis support is trimmed away has a zero
     stiffness row; NonMatchingSystem must pin it or the tangent is
     singular (code-review round-3 finding)."""
-    from goldfish_tpu.geometry.trim import support_weights
-    from goldfish_tpu.solver.system import NonMatchingSystem
+    from goldfish_jax.geometry.trim import support_weights
+    from goldfish_jax.solver.system import NonMatchingSystem
 
     # cubic, nel=10: the central CP's 4x4-span support box has corner
     # distance sqrt(2)*0.2 = 0.283 < 0.3 from the center -> fully
@@ -233,8 +233,8 @@ def test_zero_support_cps_pinned():
 def test_compress_voided_elements():
     """Fully-voided sub-cells are dropped so a trimmed patch does not
     inflate the stack's max_el padding by the void fraction."""
-    from goldfish_tpu.ops.quadrature import build_patch_quadrature
-    from goldfish_tpu.geometry.trim import apply_trim, compress_voided
+    from goldfish_jax.ops.quadrature import build_patch_quadrature
+    from goldfish_jax.geometry.trim import apply_trim, compress_voided
 
     s = _plate(nel=8)
     p, q = s.degree
@@ -251,7 +251,7 @@ def test_compress_voided_elements():
 def test_igs_arc_trim_entity():
     """IGES type-100 circular arcs resolve to exact rational arcs in
     trim loops (the most common CAD trim-curve entity)."""
-    from goldfish_tpu.geometry.igs_io import _resolve_pcurve
+    from goldfish_jax.geometry.igs_io import _resolve_pcurve
 
     ents = {1: (100, ["100", "0", "0.5", "0.5",
                       "0.75", "0.5", "0.75", "0.5"])}
@@ -270,8 +270,8 @@ def test_cut_cell_coverage_convergence():
     cut cells sit at the loop polygon's chord-error floor — strictly
     tighter than binary at EVERY subdiv, and binary strictly improves
     with refinement (finite-cell theory; geometry/trim.apply_trim)."""
-    from goldfish_tpu.geometry.trim import apply_trim
-    from goldfish_tpu.ops.quadrature import build_patch_quadrature
+    from goldfish_jax.geometry.trim import apply_trim
+    from goldfish_jax.ops.quadrature import build_patch_quadrature
 
     r = 0.3
     surf = _plate(nel=6)

@@ -3,7 +3,7 @@ sanity against beam theory."""
 
 import numpy as np
 
-from goldfish_tpu.models import tube
+from goldfish_jax.models import tube
 
 
 def test_tube_bending_matches_beam_theory():

@@ -4,11 +4,12 @@ import os
 import sys
 
 import numpy as np
+import pytest
 
-from goldfish_tpu.models import tbeam
-from goldfish_tpu.utils.checkpoint import Checkpointer
-from goldfish_tpu.utils.profiling import Profiler
-from goldfish_tpu.utils.vtk_io import SurfaceWriter, write_structured_vtk
+from goldfish_jax.models import tbeam
+from goldfish_jax.utils.checkpoint import Checkpointer
+from goldfish_jax.utils.profiling import Profiler
+from goldfish_jax.utils.vtk_io import SurfaceWriter, write_structured_vtk
 
 
 def test_vtk_roundtrip(tmp_path):
@@ -48,7 +49,7 @@ def test_vtu_pvd_series_roundtrip(tmp_path):
                                     "visualization"))
     from view_results import read_pvd, read_structured_vtk, read_vtu
 
-    from goldfish_tpu.utils.vtk_io import write_vtu
+    from goldfish_jax.utils.vtk_io import write_vtu
 
     rng = np.random.default_rng(0)
     pts = rng.normal(size=(4, 5, 3))
@@ -113,8 +114,8 @@ def test_resume_run_survives_process_death(tmp_path):
     import jax.numpy as jnp
     import pytest
 
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.utils.checkpoint import resume_run
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.utils.checkpoint import resume_run
 
     ckpt_path = str(tmp_path / "resume.npz")
     x_star = np.array([0.3, -0.2, 0.7])
@@ -172,8 +173,8 @@ def test_resume_run_exhausted_budget_is_restore_only(tmp_path):
     crash at the budget would otherwise overrun maxiter forever)."""
     import jax.numpy as jnp
 
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu.utils.checkpoint import resume_run
+    from goldfish_jax.opt.problem import OptProblem
+    from goldfish_jax.utils.checkpoint import resume_run
 
     ckpt_path = str(tmp_path / "full.npz")
     x_done = np.array([0.1, 0.2])
@@ -228,7 +229,7 @@ def test_retry_transient():
     backoff; anything else propagates immediately."""
     import pytest
 
-    from goldfish_tpu.utils.retry import retry_transient
+    from goldfish_jax.utils.retry import retry_transient
 
     calls = {"n": 0}
     sleeps = []
@@ -238,7 +239,7 @@ def test_retry_transient():
         calls["n"] += 1
         if calls["n"] < 3:
             raise RuntimeError(
-                "UNAVAILABLE: TPU worker process crashed or restarted")
+                "UNAVAILABLE: device worker restarted")
         return x + 1
 
     assert flaky(41) == 42
@@ -292,3 +293,48 @@ def test_bench_watchdog_reports_latest_timed_median(capsys):
     rec = json.loads(line)
     assert rec["value"] == 0.97
     assert rec["detail"]["provisional_timing"] is False
+
+
+@pytest.mark.parametrize("env, expected", [
+    ({"JAX_COMPILATION_CACHE_DIR": "/elsewhere/cache"}, None),
+    ({}, "checkout"),
+])
+def test_compile_cache_dir(env, expected):
+    """config.compile_cache_dir: JAX's own variable wins and the code
+    then sets nothing; otherwise a fixed directory inside the checkout
+    (never a home, temp or per-process path)."""
+    from goldfish_jax import config
+
+    got = config.compile_cache_dir(env)
+    if expected is None:
+        assert got is None
+    else:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(repo, ".jax_cache") == config.CACHE_DIR
+        assert config.compile_cache_dir(dict(env)) == got  # fixed
+
+
+@pytest.mark.parametrize("env_dir", [None, "{tmp}/jaxcache"])
+def test_compile_cache_config_in_fresh_process(tmp_path, env_dir):
+    """Importing the package sets JAX's cache directory only when
+    JAX_COMPILATION_CACHE_DIR is unset, and does not initialize a
+    backend at import."""
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "JAX_COMPILATION_CACHE_DIR")}
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = env_dir.format(tmp=tmp_path)
+    code = ("import jax, goldfish_jax.config as c; "
+            "from jax._src import xla_bridge as xb; "
+            "print(jax.config.jax_compilation_cache_dir); "
+            "print(xb.backends_are_initialized())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    cache_dir, initialized = out.stdout.split()
+    want = (os.path.join(repo, ".jax_cache") if env_dir is None
+            else env["JAX_COMPILATION_CACHE_DIR"])
+    assert cache_dir == want
+    assert initialized == "False"

@@ -17,7 +17,7 @@ def _flat_halfwing(Mc=8, Ns=16, half_span=4.0, chord=1.0):
 def test_vlm_lift_slope_vs_helmbold():
     """Rectangular AR-8 wing: CL_alpha within 10% of the Helmbold
     finite-wing estimate 2 pi AR / (2 + sqrt(AR^2 + 4))."""
-    from goldfish_tpu.physics.vlm import solve_panel_forces
+    from goldfish_jax.physics.vlm import solve_panel_forces
 
     corners = _flat_halfwing()
     alpha = 0.05
@@ -32,7 +32,7 @@ def test_vlm_lift_slope_vs_helmbold():
 
 
 def test_vlm_lift_scales_linearly_and_points_up():
-    from goldfish_tpu.physics.vlm import solve_panel_forces
+    from goldfish_jax.physics.vlm import solve_panel_forces
 
     corners = _flat_halfwing(Mc=4, Ns=8)
     _, a1 = solve_panel_forces(corners, jnp.asarray(0.03))
@@ -47,7 +47,7 @@ def test_vlm_gradient_wrt_geometry():
     aeroelastic adjoint runs through."""
     import jax
 
-    from goldfish_tpu.physics.vlm import solve_panel_forces
+    from goldfish_jax.physics.vlm import solve_panel_forces
 
     corners = _flat_halfwing(Mc=4, Ns=6)
 

@@ -9,7 +9,7 @@ design step while plain reuse of d_prev is first-order.
 import jax.numpy as jnp
 import numpy as np
 
-from goldfish_tpu.opt.warmstart import SecantWarmStart
+from goldfish_jax.opt.warmstart import SecantWarmStart
 
 
 def _state(x):

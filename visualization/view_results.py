@@ -6,8 +6,8 @@ The reference ships a ParaView-python script
 files. This equivalent works on the rebuild's outputs without ParaView:
 
   - reads the legacy-VTK surface snapshots written by
-    goldfish_tpu.utils.vtk_io.SurfaceWriter and/or the optimization
-    checkpoints written by goldfish_tpu.utils.checkpoint.Checkpointer;
+    goldfish_jax.utils.vtk_io.SurfaceWriter and/or the optimization
+    checkpoints written by goldfish_jax.utils.checkpoint.Checkpointer;
   - prints summary statistics (displacement extrema, thickness range,
     objective history);
   - optionally renders matplotlib PNGs (deformed surface scatter,
